@@ -1,4 +1,4 @@
-"""cellularautomatons3d_tpu — a TPU-native 3D cellular-automaton engine.
+"""cellularautomatons3d_tpu — a JAX 3D cellular-automaton engine.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 ``lightest/cellularautomatons3d`` (a WebGPU browser app): totalistic 3D CA

@@ -1,6 +1,6 @@
 """Engine: lifecycle, frame loop and reconfiguration.
 
-The TPU-native counterpart of the reference's host orchestrator
+The JAX counterpart of the reference's host orchestrator
 (``MainModule``, main_pathtraced.js:96-1855), redesigned around functional
 state:
 
@@ -85,10 +85,11 @@ class Engine:
         self.mesh = None
         self._sharded_step = None
         self._mesh_render = None
+        self._fused_loops = {}
         if cfg.mesh_devices:
             # Multi-chip mode (BASELINE config 5): Z-sharded CA step with
-            # ICI halo exchange + pixel-row-sharded rendering.  A 2-D
-            # mesh_shape additionally shards Y (pod scale).
+            # halo exchange + pixel-row-sharded rendering.  A 2-D
+            # mesh_shape additionally shards Y (multi-host scale).
             from .parallel.sharded import make_mesh, make_sharded_step
 
             self.mesh = make_mesh(cfg.mesh_devices, shape=cfg.mesh_shape)
@@ -212,7 +213,7 @@ class Engine:
     def _build_mesh_render(self, camera_static: bool):
         """Pixel-row-sharded fast render over the mesh (config 5).
 
-        Each device all-gathers the (small, bit-packed) grid over ICI and
+        Each device all-gathers the (small, bit-packed) grid and
         renders its row shard with global UVs via the kernel's row0 offset.
         Temporal accumulation is row-local; under camera motion, history is
         reprojected within the shard's rows and pixels reprojecting
@@ -434,7 +435,9 @@ class Engine:
             )
             if self.mesh is not None:
                 self.history = self._shard_history(self.history)
-        self._mesh_render = None  # trace-time constants changed
+        # Trace-time constants changed.
+        self._mesh_render = None
+        self._fused_loops = {}
 
     @property
     def restart_required(self) -> bool:
@@ -460,7 +463,7 @@ class Engine:
         writes an Orbax checkpoint *directory* — the multi-host-safe
         format: sharded ``jax.Array`` leaves are written per-shard with
         no host gather, which is the right tool for mesh engines on
-        real pods (npz would funnel the grid through host 0)."""
+        real multi-host meshes (npz would funnel the grid through host 0)."""
         if backend == "orbax":
             return self._save_orbax(path)
         if backend != "npz":
@@ -609,9 +612,9 @@ class Engine:
 
 def _build_mesh_fused_loop(self, frames: int, steps_per_frame: int = 1):
     """Fused production loop INSIDE ``shard_map`` (config 5): ``frames``
-    iterations of (sharded CA step with ICI halo exchange + row-sharded
-    frame) chained in one on-device ``fori_loop`` — per-frame host
-    dispatches (30-60 ms each on this transport) drop to one per loop.
+    iterations of (sharded CA step with halo exchange + row-sharded
+    frame) chained in one on-device ``fori_loop`` — one host dispatch
+    per loop instead of one per frame.
     Static camera; history stays row-local (row0-offset temporal EMA,
     exactly the per-frame mesh render's semantics)."""
     import dataclasses as _dc
@@ -700,18 +703,26 @@ def _engine_run_fused(self, frames: int, steps_per_frame: int = 1):
     if self.config.pipeline != "fast":
         raise ValueError("run_fused requires the fast pipeline")
     params = self.render_params()
+    # Built once per loop shape: a new loop function would trace and
+    # compile again on every call.
+    key = (frames, steps_per_frame)
+    run = self._fused_loops.get(key)
+    if run is None:
+        if self.mesh is not None:
+            run = self._build_mesh_fused_loop(frames, steps_per_frame)
+        else:
+            from .render.renderer_fast import make_fused_loop
+
+            run = make_fused_loop(
+                self.render_static, self.spec, frames, steps_per_frame
+            )
+        self._fused_loops[key] = run
     if self.mesh is not None:
-        run = self._build_mesh_fused_loop(frames, steps_per_frame)
         self.state, hcolor, hidx, frame = run(
             self.state, params, self.history.color, self.history.hit_idx
         )
         self.history = FastHistory(color=hcolor, hit_idx=hidx)
     else:
-        from .render.renderer_fast import make_fused_loop
-
-        run = make_fused_loop(
-            self.render_static, self.spec, frames, steps_per_frame
-        )
         self.state, self.history, frame = run(
             self.state, params, self.history
         )

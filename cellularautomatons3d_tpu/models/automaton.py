@@ -3,7 +3,7 @@
 An :class:`AutomatonSpec` bundles everything that is *static* for a compiled
 step kernel: grid size, neighbourhood offsets, rule masks, state count and
 boundary mode.  It is hashable so it can be a ``static_argnum`` to
-``jax.jit`` — changing any of it recompiles, which is the TPU-native
+``jax.jit`` — changing any of it recompiles, which is the JAX
 equivalent of the reference's restart path (main_pathtraced.js:624-637).
 
 Rule evaluation semantics (compute_clustered.wgsl:192-247):

@@ -16,7 +16,7 @@ The rule surface matches the reference's rule compiler
     offsets 0/27/54, byte-identical to the reference's storage buffers
     (main_pathtraced.js:155-159,583-617).
   - ``masks()``: six 27-bit Python ints (bit *c* set ⇔ count *c* matches) —
-    the TPU-native form consumed by the bit-sliced step kernels, where rules
+    the form consumed by the bit-sliced step kernels, where rules
     are static trace-time constants (restart-bound parameters trigger a
     recompile, mirroring the reference's applyOnRestart split).
 """

@@ -1,9 +1,9 @@
 """Bit-sliced (bitboard) arithmetic on uint32 word planes.
 
-The TPU-native replacement for the reference's per-cell bit loop
+The replacement for the reference's per-cell bit loop
 (compute_clustered.wgsl:213-245): instead of iterating 32 bits of each word
-on a scalar core, every bitwise op on a ``uint32`` word plane processes 32
-cells at once on the VPU's 8×128 lanes — 4096 cells per vector op.
+on one thread, every bitwise op on a ``uint32`` word plane processes 32
+cells at once.
 
 Key pieces:
 

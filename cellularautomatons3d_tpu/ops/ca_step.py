@@ -1,6 +1,6 @@
 """Bit-packed CA step (XLA path): one generation on uint32 word planes.
 
-TPU-native equivalent of the clustered compute shader
+The equivalent of the clustered compute shader
 (compute_clustered.wgsl:192-265), redesigned rather than translated:
 
 * the reference iterates the 32 bits of each word serially on a GPU thread
@@ -17,9 +17,9 @@ State layout: ``uint32[W, Z, Y]`` (see `packing.py`); multi-state ages are a
 stack ``uint32[B, W, Z, Y]`` of bit-sliced age planes.
 
 This module IS the production step — the bit-sliced formulation lowers to
-pure VPU logic ops that XLA fuses into a handful of kernels (0.054 ms/step
-at 256³ on v5e), so no hand-written Pallas CA kernel is needed; the dense
-oracle it is differential-tested against is `ca_reference.py`.
+elementwise logic ops that XLA fuses into a handful of kernels, so no
+hand-written CA kernel is needed; the dense oracle it is
+differential-tested against is `ca_reference.py`.
 """
 
 from __future__ import annotations

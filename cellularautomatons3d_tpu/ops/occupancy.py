@@ -12,15 +12,15 @@ XG = max(1, ⌈W/8⌉) x-block *groups* of 32 blocks each (the last group is
 partial when W is not a multiple of 8, e.g. grids 288-480), laid out group-major
 along the minor axis: bit ``xc & 31`` of ``coarse[zc, (xc >> 5)·Yc + yc]``
 = any live cell in block (xc, yc, zc).  For N ≤ 256 (XG = 1) this is the
-plain ``[Zc, Yc]`` bitmap.  XG·Yc must stay ≤ 128 for the render kernel's
-single-row lane gather — N ≤ 512.
+plain ``[Zc, Yc]`` bitmap.  At 1024³ the mip is 64 KiB (1/512 of the packed
+volume); the traversal kernel reads it to skip empty 8-plane columns.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 
-__all__ = ["coarse_occupancy", "plane_occupancy", "dilate_occupancy", "BLOCK"]
+__all__ = ["coarse_occupancy", "BLOCK"]
 
 BLOCK = 8  # downsample factor per axis
 
@@ -46,8 +46,7 @@ def coarse_occupancy(packed: jnp.ndarray) -> jnp.ndarray:
 
 def _compress_x_groups(v: jnp.ndarray) -> jnp.ndarray:
     """[W, R, Yc] per-word block occupancy → [R, XG·Yc] bit-packed rows
-    (bit ``xb & 31`` of lane ``(xb >> 5)·Yc + yc``); shared by the 8³ and
-    plane-level mips."""
+    (bit ``xb & 31`` of lane ``(xb >> 5)·Yc + yc``)."""
     w, r, yc = v.shape
     g = v
     for s in (1, 2, 4):  # after 1+2+4, bit i = OR of bits i..i+7
@@ -67,67 +66,3 @@ def _compress_x_groups(v: jnp.ndarray) -> jnp.ndarray:
             word = word | (nib[gi * BLOCK + wi] << _U32(4 * wi))
         groups.append(word)
     return jnp.concatenate(groups, axis=1)  # [R, XG·Yc]
-
-
-def plane_occupancy(packed: jnp.ndarray) -> jnp.ndarray:
-    """Plane-level block mip: full z resolution, 8× in x/y.
-
-    Returns ``uint32[Z, XG·Yc]`` — bit ``xb & 31`` of
-    ``plane[z, (xb >> 5)·Yc + yc]`` = any live cell in the 1×8×8 block
-    (z, xb, yb).  The render kernel uses it as a per-descended-column
-    prefilter: fine probes run only on planes whose probed block is
-    occupied, which skips most of the 8 fine planes of a column that the
-    8³ mip flagged for a single surface crossing.
-    """
-    w, z, y = packed.shape
-    if y % BLOCK:
-        raise ValueError(f"grid extents must be multiples of {BLOCK}")
-    yc = y // BLOCK
-    v = packed.reshape(w, z, yc, BLOCK)
-    v = jnp.bitwise_or.reduce(v, axis=3)  # [W, Z, Yc] u32
-    return _compress_x_groups(v)
-
-
-def dilate_occupancy(
-    coarse: jnp.ndarray, dilate_z: bool = True, yc: int | None = None,
-    dilate_y: bool = True,
-) -> jnp.ndarray:
-    """OR each block with its neighbourhood (one-block dilation).
-
-    Lets the render kernel probe a ray segment's occupancy at a few
-    sample points only: any block the segment crosses within one block
-    (Chebyshev) of a probe point's block is covered, so dilation keeps
-    the skip test conservative (never misses occupancy) as long as probe
-    spacing stays ≤ 2 blocks per xy coordinate.
-
-    ``dilate_z=False`` dilates in x/y only — used for the per-z-row
-    column probe, where z is already pinned to the row being probed.
-    ``dilate_y=False`` dilates in x only — the column probe's 5-point
-    variant needs only ±1 x coverage (probe spacing ≤ 1 block per
-    coordinate makes every touched block share a y-block with some probe
-    and sit within one x-block of it; see render_fast.column_occ).
-    ``yc`` (blocks along y) must be given when the input has multiple
-    x-block groups (N > 256) so dilation respects group boundaries.
-    """
-    zc, ytot = coarse.shape
-    yc = ytot if yc is None else yc
-    xg = ytot // yc
-    d = coarse.reshape(zc, xg, yc)
-    # x neighbours: within-word shifts + the carry across group boundaries
-    # (block 31 of group g is x-adjacent to block 0 of group g+1).
-    x = d | (d << _U32(1)) | (d >> _U32(1))
-    if xg > 1:
-        lo_carry = jnp.zeros_like(d)
-        lo_carry = lo_carry.at[:, :-1].set((d[:, 1:] & _U32(1)) << _U32(31))
-        hi_carry = jnp.zeros_like(d)
-        hi_carry = hi_carry.at[:, 1:].set(d[:, :-1] >> _U32(31))
-        x = x | lo_carry | hi_carry
-    d = x
-    axes = [2] if dilate_y else []       # y (lanes within group)
-    if dilate_z:
-        axes.insert(0, 0)                # z (rows)
-    for axis in axes:
-        d = d | jnp.roll(d, 1, axis) | jnp.roll(d, -1, axis)
-        # roll wraps; the wrapped rows only ADD conservative occupancy at
-        # the opposite edge — harmless for a skip structure.
-    return d.reshape(zc, ytot)

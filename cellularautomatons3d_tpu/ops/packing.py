@@ -1,6 +1,6 @@
 """Bit-packed voxel state: pack/unpack and seeding.
 
-State layout (TPU-native, differs from the reference's memory order but is
+State layout (differs from the reference's memory order but is
 semantically the same bit-packing):
 
 * Dense form: ``uint8[Z, Y, X]`` (or ``uint8[Z, Y, X]`` ages for multi-state).
@@ -11,8 +11,9 @@ The packed *bit* mapping (cell → (word ``x//32``, bit ``x%32``)) matches the
 reference's cluster addressing (compute_clustered.wgsl:56-66,79-86;
 main_pathtraced.js:1170-1178).  The reference stores words as a flat array
 ``idx = w + y*W + z*W*N`` (w minor); we instead put the packed-word axis
-*major* and the y axis *minor* so that on TPU the y axis maps onto the 128
-vector lanes (a W=8 minor axis at 256³ would waste 94% of each lane tile).
+*major* and the y axis *minor*: the CA step's shifted word planes are then
+long contiguous y runs, and sharding along z (``parallel/sharded.py``)
+splits a major axis.
 Conversion helpers keep the two orders interchangeable at the host boundary.
 
 Seeding replicates the reference's two initial states

@@ -1,4 +1,4 @@
-"""Multi-chip scaling: z-axis domain decomposition with ICI halo exchange.
+"""Multi-device scaling: z-axis domain decomposition with halo exchange.
 
 The reference is strictly single-device (SURVEY.md §2.3); this layer is the
 new capability mandated by BASELINE.json config 5 (512³ sharded across
@@ -8,8 +8,8 @@ chips).  Design (SURVEY.md §5 "long-context" analogue):
   ``jax.sharding.Mesh`` — the packed x axis is deliberately never sharded,
   dodging sub-word halo exchange (SURVEY.md §7 "hard parts");
 * every step exchanges one z *word-plane* per face via ``lax.ppermute``
-  inside ``shard_map`` (a 256·256·4-byte plane at 256³ — a few hundred KB
-  riding ICI), then runs the same bit-sliced local update on the haloed
+  inside ``shard_map`` (a 256·256·4-byte plane at 256³ — a few hundred
+  KB, which XLA hands to NCCL on GPUs), then runs the same bit-sliced local update on the haloed
   slab and slices the interior;
 * boundary modes act only at the global edges: WRAP keeps the natural ring;
   CLAMP zeroes both outer halos; CLAMP_REF zeroes only the low-z halo (the
@@ -21,15 +21,15 @@ chips).  Design (SURVEY.md §5 "long-context" analogue):
 All neighbourhood presets have |dz| ≤ 1, so a 1-plane halo is exact
 (asserted).
 
-**Pod scale (2-D decomposition).** A 1-D z split runs out of planes on
-pods (> 64 chips at 512³ leaves < 8 planes per shard).  ``make_mesh``
+**Multi-host scale (2-D decomposition).** A 1-D z split runs out of planes on
+large meshes (> 64 devices at 512³ leaves < 8 planes per shard).  ``make_mesh``
 with ``shape=(mz, my)`` builds a 2-D ``(z, y)`` mesh: the grid shards
 along Z *and* Y (both cell-granular axes — x stays packed and whole),
 and the step exchanges z word-planes first, then y word-columns *of the
 z-padded slab*, so the 8 corner ribbons ride the second exchange —
 the standard sequential halo schedule for Moore stencils.  Y halos are
-``[W, lz+2, 1]`` columns (≤ 256 KiB at 1024³) riding the second mesh
-axis's ICI ring.
+``[W, lz+2, 1]`` columns (≤ 256 KiB at 1024³) exchanged along the
+second mesh axis.
 """
 
 from __future__ import annotations

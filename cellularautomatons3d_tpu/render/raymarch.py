@@ -2,8 +2,8 @@
 
 The reference marches each pixel in a divergent per-thread ``while`` loop
 (rayMarchDepth: pathtraced_fragment_clustered.wgsl:682-741, rayMarchShadow:
-:635-680).  TPUs have no SIMT divergence, so the loops become fixed-trip
-``lax.fori_loop``s over the *step index* carrying per-pixel latch masks —
+:635-680).  As vectorized array code over all pixels, the loops become
+fixed-trip ``lax.fori_loop``s over the *step index* carrying per-pixel latch masks —
 every lane runs every step but the first-hit result is latched (SURVEY.md §7
 "hard parts").  Trip counts are the shader's sample counts: the reference's
 ``while depth < marchDepth`` with ``stepSize ≥ marchDepth/steps`` executes
@@ -100,7 +100,7 @@ def ray_march_shadow(
     Returns the occlusion factor: 1.0 unoccluded, OCCLUSION_FACTOR when a
     *different* live cell's visible cube blocks the segment.  ``active``
     masks pixels that need the march at all (dead lanes still execute but
-    cannot latch — the TPU analogue of the shader's early return).
+    cannot latch — the array analogue of the shader's early return).
     """
     direction = _normalize(end - start)
     march_depth = jnp.linalg.norm(end - start, axis=-1)

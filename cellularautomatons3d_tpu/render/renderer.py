@@ -1,6 +1,6 @@
 """The path-traced volume renderer: one full frame as a jittable function.
 
-This is the TPU-native equivalent of the active fragment shader
+This is the JAX equivalent of the active fragment shader
 (pathtraced_fragment_clustered.wgsl:800-890) and its render-pass plumbing
 (main_pathtraced.js:1775-1794): per-pixel primary ray → volume slab test →
 stochastic first-hit march → temporal depth refinement → Cook-Torrance
@@ -73,15 +73,10 @@ class RenderStatic:
     # extended lighting.  Requires a frame counter (sample_idx) from the
     # caller; implies indirect_bounces == 1.
     gi_temporal: bool = False
-    # Sliced-path controls (fast pipeline).  ``force_sliced`` routes
-    # grids ≤ 256 through the z-slab/brick machinery (render_slab.py)
-    # instead of the fused kernel — the ≤ 256³ differential hook for the
-    # > 256³ path (e.g. mesh+sliced parity at test scale).
-    # ``slab_planes`` / ``x_chunk_cells`` override the brick layout
-    # (render_slab.brick_layout); None = production sizing.
-    force_sliced: bool = False
-    slab_planes: int | None = None
-    x_chunk_cells: int | None = None
+    # Traversal of the fast pipeline: "kernel" = the Pallas kernel
+    # (render/traverse.py), "reference" = its plain jnp version, the
+    # parity reference and the baseline the kernel is timed against.
+    traversal: str = "kernel"
 
 
 class RenderParams(NamedTuple):
@@ -135,7 +130,11 @@ def _texture_load(img, uv, width: int, height: int):
 def _get_reprojected_uv(prev_proj_view, p):
     """getReprojectedUV (wgsl:473-487): project through the previous
     view-projection; y flipped into texture space."""
-    v = (prev_proj_view @ jnp.concatenate([p, jnp.ones_like(p[..., :1])], -1)[..., None])[..., 0]
+    v = jnp.einsum(
+        "ij,...j->...i", prev_proj_view,
+        jnp.concatenate([p, jnp.ones_like(p[..., :1])], -1),
+        precision=jax.lax.Precision.HIGHEST,
+    )
     clip = v / v[..., 3:4]
     return jnp.stack(
         [clip[..., 0] * 0.5 + 0.5, -clip[..., 1] * 0.5 + 0.5], axis=-1
@@ -452,7 +451,10 @@ def render_frame(
     prev_camera_pos = params.prev_view_mat[:3, 3]
 
     ray_cam = get_ray(uv, window_size)
-    view_ray = (params.view_mat[:3, :3] @ ray_cam[..., None])[..., 0]
+    view_ray = jnp.einsum(
+        "ij,...j->...i", params.view_mat[:3, :3], ray_cam,
+        precision=jax.lax.Precision.HIGHEST,
+    )
 
     t_near, t_far = ray_cube_intersect(
         camera_pos, view_ray, jnp.float32(0.0), jnp.float32(HALF_CUBE_SIZE)

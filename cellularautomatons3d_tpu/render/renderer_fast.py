@@ -1,12 +1,14 @@
-"""Fast render pipeline: Pallas DDA kernel + XLA frame composition.
+"""Fast render pipeline: exact DDA traversal + XLA shading and composition.
 
 Mirrors the exact pipeline's per-frame flow (renderer.py / wgsl
-fragment_main :800-890) around the fused kernel in `render_fast.py`:
-temporal EMA accumulation, the light-source cube, the depth-overlay debug
-view, gamma correction and f16 history — all cheap elementwise XLA.
+fragment_main :800-890) around the traversal in ``traverse.py``:
+Cook-Torrance shading, soft shadows and GI (``lighting.py``), temporal EMA
+accumulation, the light-source cube, the depth-overlay debug view, gamma
+correction and f16 history.  Everything after the traversal is elementwise
+work that XLA fuses.
 
-Temporal accumulation: the kernel returns deterministic exact-DDA hits, so
-for a static camera the reference's reprojection degenerates to the same
+Temporal accumulation: the traversal returns deterministic exact-DDA hits,
+so for a static camera the reference's reprojection degenerates to the same
 pixel; history is validated against the stored hit-cell id (the analogue of
 mixWithReprojectedColor's cell check, wgsl:455-458).  When the camera moved
 since the previous frame the caller passes ``camera_static=False`` and the
@@ -18,22 +20,22 @@ accumulation survives interactive camera motion, as in the reference.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 
-from ..ops.occupancy import coarse_occupancy
-from .render_fast import raytrace_tiles, pack_cam
-from .renderer import RenderParams, RenderStatic
-from .intersect import ray_cube_intersect, HALF_CUBE_SIZE
-from .camera import pixel_uvs, get_ray
+from . import brdf, lighting, traverse
+from .camera import COT_HALF_FOV
+from .intersect import ray_cube_intersect
+from .renderer import RenderParams, RenderStatic, _get_reprojected_uv
 
 __all__ = [
     "FastHistory",
     "init_fast_history",
+    "pixel_rays",
+    "trace_shaded",
     "render_frame_fast",
     "make_fused_loop",
 ]
@@ -44,35 +46,6 @@ class FastHistory(NamedTuple):
     hit_idx: jnp.ndarray  # [H, W] int32 cell id (-1 = miss)
 
 
-def _cam_vec(params: "RenderParams", w, fh, row0=None):
-    """Pack RenderParams into the kernel's parameter vector (the traced
-    counterpart of render_fast.pack_cam)."""
-    if row0 is None:
-        row0 = jnp.float32(0.0)
-    return jnp.concatenate(
-        [
-            params.view_mat[:3, :3].reshape(-1),
-            params.view_mat[:3, 3],
-            jnp.array([w, fh], jnp.float32),
-            params.light_pos,
-            params.light_magnitude[None],
-            params.cell_size[None],
-            params.roughness[None],
-            params.base_reflectivity,
-            params.material_color,
-            params.light_radius[None],
-            params.emissive_color,
-            params.emissive_strength[None],
-            params.elapsed_time[None],
-            jnp.asarray(row0, jnp.float32)[None],
-            params.temporal_alpha[None],
-            params.gamma[None],
-            params.show_depth_overlay[None],
-            jnp.zeros((4,), jnp.float32),
-        ]
-    )
-
-
 def init_fast_history(width: int, height: int) -> FastHistory:
     return FastHistory(
         color=jnp.zeros((height, width, 3), dtype=jnp.float16),
@@ -80,128 +53,84 @@ def init_fast_history(width: int, height: int) -> FastHistory:
     )
 
 
-@functools.partial(jax.jit, static_argnums=(0, 4, 5))
-def trace_shaded(
-    s: RenderStatic,
-    packed: jnp.ndarray,
-    cam: jnp.ndarray,
-    ages: jnp.ndarray | None = None,
-    total_states: int = 2,
-    interpret: bool = False,
-    sample_idx: jnp.ndarray | None = None,
-):
-    """Traced + shaded scene: (rgb [H,W,3] linear light, depth, hit_idx).
+def pixel_rays(view_mat, width, height, full_height=None, row0=0.0):
+    """Per-pixel (ux, uy) UVs and unit world directions (dx, dy, dz) of a
+    ``height``-row band starting at global row ``row0`` of a
+    ``full_height``-row window (get_ray, wgsl:188-197).
 
-    Composition of the Pallas traversal kernels with the extended lighting
-    model.  The fused kernel handles primary rays + the hard direct shadow
-    in one launch (the common fast path); soft shadows and the one-bounce
-    GI run as extra occlusion-kernel passes + XLA shading — the in-kernel
-    variants unrolled past practical Mosaic compile times at 256³, and the
-    decomposition shares one implementation with the > 256³ sliced path
-    (render_slab.py).  Emissive radiance is added here for every path.
+    The camera rotation is applied as explicit sums, not a matrix product:
+    a float32 product may run in TF32 on the GPU, which moves directions by
+    ~1e-3 and flips DDA hits at cell boundaries."""
+    fh = height if full_height is None else full_height
+    xs = (jnp.arange(width, dtype=jnp.float32) + 0.5) / width
+    ys = 1.0 - (jnp.arange(height, dtype=jnp.float32) + row0 + 0.5) / fh
+    ux, uy = jnp.meshgrid(xs, ys)
+    rx = (ux - 0.5) * (width / fh)
+    ry = uy - 0.5
+    rz = jnp.full_like(rx, -0.5 * COT_HALF_FOV)
+    inv = jax.lax.rsqrt(rx * rx + ry * ry + rz * rz)
+    rx, ry, rz = rx * inv, ry * inv, rz * inv
+    r = view_mat[:3, :3]
+    dirs = tuple(r[i, 0] * rx + r[i, 1] * ry + r[i, 2] * rz for i in range(3))
+    return (ux, uy), dirs
+
+
+def trace_shaded(s: RenderStatic, packed, params: RenderParams, ages=None,
+                 total_states: int = 2, row0=0.0, full_height=None,
+                 sample_idx=None):
+    """Traced + shaded scene: (rgb [H,W,3] linear light, depth, hit_idx,
+    view directions).
+
+    The primary launch returns hits, the hard shadow and the age fade;
+    soft shadows and GI add one occlusion launch (``lighting.py``).
+    Emissive radiance is added to every hit, neither shadowed nor faded
+    (renderer.py:284-285).  ``sample_idx``: traced frame counter of the
+    temporally-amortized mode (RenderStatic.gi_temporal).
     """
-    h, w = s.height, s.width
-    n = s.grid_size
+    h, w, n = s.height, s.width, s.grid_size
+    kernel = s.traversal == "kernel"
     soft = s.soft_shadow_samples > 1
     gi = s.indirect_lighting
-    if n <= 256 and not s.force_sliced:
-        rgb, depth, idx = raytrace_tiles(
-            packed,
-            coarse_occupancy(packed),
-            cam,
-            ages,
-            grid_size=n,
-            width=w,
-            height=h,
-            # Soft shadows come from decomposed occlusion passes below.
-            shadow=not soft,
-            interpret=interpret,
-            total_states=total_states,
+    p = params
+    o = p.view_mat[:3, 3]
+    uv, dirs = pixel_rays(p.view_mat, w, h, full_height, row0)
+    depth, idx, factor = traverse.trace_primary(
+        packed, dirs, o, p.light_pos, p.cell_size, ages, grid_size=n,
+        shadow=not soft, total_states=total_states, kernel=kernel,
+    )
+    q, porigin, coords, found = lighting.hit_geometry(o, dirs, idx, depth, n)
+    rgb = brdf.calculate_lighting_at(
+        q, porigin, coords, o, jnp.broadcast_to(p.light_magnitude, q.shape),
+        p.light_pos, grid_size=n, roughness=p.roughness,
+        material_color=p.material_color,
+        base_reflectivity=p.base_reflectivity,
+    ) * factor[..., None]
+    if soft or gi:
+        temporal = s.gi_temporal and sample_idx is not None
+        # Deeper GI recursion runs its own launches per level; one bounce
+        # rides the soft-shadow launch.
+        deep = gi and not temporal and s.indirect_bounces > 1
+        occl, gi_rgb = lighting.lighting_passes(
+            packed, p, q, porigin, coords, found, uv, grid_size=n,
+            soft_k=s.soft_shadow_samples if soft else None,
+            jitter_k=(sample_idx % s.soft_shadow_samples).astype(jnp.int32)
+            if soft and temporal else None,
+            gi=gi and not deep,
+            gi_slot=(sample_idx % 4).astype(jnp.int32)
+            if gi and temporal else None,
+            kernel=kernel,
         )
-        if soft or gi:
-            from .render_slab import (
-                direct_occlusion,
-                hit_geometry,
-                indirect_bounce,
-                lighting_passes,
-                prep_slabs,
-            )
-
-            temporal = s.gi_temporal and sample_idx is not None
-            prepped = prep_slabs(packed, [(0, n)], n)
-            q, origin, coords, found, _ = hit_geometry(
-                cam, idx, depth, grid_size=n, width=w, height=h
-            )
-            jitter_k = None
-            if soft and temporal:
-                jitter_k = (
-                    sample_idx % s.soft_shadow_samples
-                ).astype(jnp.int32)
-            if not gi or temporal or s.indirect_bounces == 1:
-                # Single-bounce (and temporal) configs: every occlusion
-                # query of the frame — soft samples + GI slots — rides
-                # ONE multi-query traversal (render_slab.lighting_passes).
-                occl, gi_rgb = lighting_passes(
-                    cam, q, origin, coords, found, prepped,
-                    grid_size=n, width=w, height=h,
-                    soft_k=s.soft_shadow_samples if soft else None,
-                    jitter_k=jitter_k,
-                    gi=gi,
-                    gi_slot=(
-                        (sample_idx % 4).astype(jnp.int32)
-                        if (gi and temporal) else None
-                    ),
-                    interpret=interpret,
-                )
-            else:
-                # Deep recursion (indirect_bounces > 1): per-level passes.
-                occl = (
-                    direct_occlusion(
-                        cam, q, coords, found, prepped,
-                        grid_size=n, width=w, height=h,
-                        soft_k=s.soft_shadow_samples, jitter_k=None,
-                        interpret=interpret,
-                    )
-                    if soft
-                    else None
-                )
-                gi_rgb = indirect_bounce(
-                    packed, cam, q, origin, coords, found, prepped,
-                    grid_size=n, width=w, height=h,
-                    interpret=interpret, bounces=s.indirect_bounces,
-                )
-            if occl is not None:
-                # The kernel output is unshadowed (but age-faded) direct
-                # light; the soft occlusion multiplies it here.
-                rgb = rgb * occl[..., None]
-            if gi_rgb is not None:
-                rgb = rgb + jnp.where(found[..., None], gi_rgb, 0.0)
-    else:
-        from .render_slab import raytrace_sliced
-
-        rgb, depth, idx = raytrace_sliced(
-            packed,
-            cam,
-            ages,
-            grid_size=n,
-            width=w,
-            height=h,
-            interpret=interpret,
-            total_states=total_states,
-            soft_shadow_samples=s.soft_shadow_samples,
-            indirect=s.indirect_lighting,
-            indirect_bounces=s.indirect_bounces,
-            slab_planes=s.slab_planes,
-            x_chunk_cells=s.x_chunk_cells,
-            sample_idx=sample_idx if s.gi_temporal else None,
-        )
-    # Emissive cells: surfaces add their own radiance, neither shadowed
-    # nor age-faded (renderer.py:263-264).
-    from .render_fast import P_EMIS, P_EMISS
-
-    emis = cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS]
-    rgb = jnp.where((idx >= 0)[..., None], rgb + emis, rgb)
-    return rgb, depth, idx
+        if deep:
+            gi_rgb = lighting.indirect_bounce(
+                packed, p, q, porigin, coords, found, grid_size=n,
+                bounces=s.indirect_bounces, kernel=kernel)
+        if occl is not None:
+            rgb = rgb * occl[..., None]
+        if gi_rgb is not None:
+            rgb = rgb + gi_rgb
+    rgb = rgb + p.emissive_color * p.emissive_strength
+    rgb = jnp.where(found[..., None], rgb, 0.0)
+    return rgb, depth, idx, (uv, dirs)
 
 
 @functools.partial(jax.jit, static_argnums=(0, 4, 6, 8))
@@ -235,40 +164,22 @@ def render_frame_fast(
     """
     h, w = s.height, s.width
     fh = full_height if full_height is not None else h
-    if row0 is None:
-        row0 = jnp.float32(0.0)
-    row0 = jnp.asarray(row0, jnp.float32)
-
-    cam = _cam_vec(params, w, fh, row0)
-    rgb, depth, idx = trace_shaded(
-        s, packed, cam, ages, total_states,
-        # The Pallas TPU kernel has no CPU lowering — interpret off-TPU.
-        jax.default_backend() == "cpu",
-        sample_idx,
+    row0 = jnp.asarray(0.0 if row0 is None else row0, jnp.float32)
+    rgb, depth, idx, ((ux, _), dirs) = trace_shaded(
+        s, packed, params, ages, total_states, row0, fh, sample_idx,
     )
-
-    # Global-window UVs for this (possibly row-sharded) pixel range.
-    xs = (jnp.arange(w, dtype=jnp.float32) + 0.5) / w
-    ys = 1.0 - (jnp.arange(h, dtype=jnp.float32) + row0 + 0.5) / fh
-    u_, v_ = jnp.meshgrid(xs, ys)
-    uv = jnp.stack([u_, v_], axis=-1)
-    ray_cam = get_ray(uv, jnp.array([w, fh], jnp.float32))
-    view_ray = (params.view_mat[:3, :3] @ ray_cam[..., None])[..., 0]
+    view_ray = jnp.stack(dirs, axis=-1)
     camera_pos = params.view_mat[:3, 3]
 
     # Temporal EMA (wgsl:429-471): same-cell history blended with alpha.
     if camera_static:
         prev = history.color.astype(jnp.float32)
-        same_cell = (idx == history.hit_idx) & (idx >= 0)
-        mixed = jnp.clip(prev + (rgb - prev) * params.temporal_alpha, 0.0, 1.0)
-        out = jnp.where(same_cell[..., None], mixed, rgb)
+        valid = idx == history.hit_idx
     else:
         # Camera moved: reproject the hit point through the previous
         # view-projection (getReprojectedUV, wgsl:473-487) and gather
         # history at the reprojected pixel, validated by hit-cell id
         # (mixWithReprojectedColor, wgsl:429-471).
-        from .renderer import _get_reprojected_uv
-
         hit_point = camera_pos + view_ray * depth[..., None]
         uv_r = _get_reprojected_uv(params.prev_proj_view, hit_point)
         in_bounds = (
@@ -280,17 +191,14 @@ def render_frame_fast(
         # [row0, row0 + h) — reject pixels reprojecting outside it.
         py_g = (uv_r[..., 1] * fh).astype(jnp.int32) - row0.astype(jnp.int32)
         in_bounds = in_bounds & (py_g >= 0) & (py_g < h)
-        py = jnp.clip(py_g, 0, h - 1)
-        flat = py * w + px
-        prev = jnp.take(
-            history.color.reshape(-1, 3), flat.reshape(-1), axis=0
-        ).reshape(h, w, 3).astype(jnp.float32)
-        prev_idx = jnp.take(history.hit_idx.reshape(-1), flat.reshape(-1)).reshape(
-            h, w
-        )
-        valid = in_bounds & (idx >= 0) & (prev_idx == idx)
-        mixed = jnp.clip(prev + (rgb - prev) * params.temporal_alpha, 0.0, 1.0)
-        out = jnp.where(valid[..., None], mixed, rgb)
+        flat = (jnp.clip(py_g, 0, h - 1) * w + px).reshape(-1)
+        prev = jnp.take(history.color.reshape(-1, 3), flat, axis=0)
+        prev = prev.reshape(h, w, 3).astype(jnp.float32)
+        prev_idx = jnp.take(history.hit_idx.reshape(-1), flat).reshape(h, w)
+        valid = in_bounds & (prev_idx == idx)
+    valid = valid & (idx >= 0)
+    mixed = jnp.clip(prev + (rgb - prev) * params.temporal_alpha, 0.0, 1.0)
+    out = jnp.where(valid[..., None], mixed, rgb)
 
     # Light-source cube (wgsl:866-874).
     lt_near, lt_far = ray_cube_intersect(
@@ -304,8 +212,8 @@ def render_frame_fast(
     # debug overlay — a left-half depth view must not pollute accumulation.
     new_history = FastHistory(color=out.astype(jnp.float16), hit_idx=idx)
 
-    # Depth overlay (wgsl:880-883).
-    overlay = (params.show_depth_overlay == 1.0) & (uv[..., 0] < 0.5)
+    # Depth overlay (wgsl:880-883), then gamma (wgsl:885-888).
+    overlay = (params.show_depth_overlay == 1.0) & (ux < 0.5)
     overlay_rgb = jnp.stack(
         [depth, jnp.zeros_like(depth), jnp.zeros_like(depth)], axis=-1
     )
@@ -313,98 +221,6 @@ def render_frame_fast(
 
     presentation = jnp.power(out, 1.0 / params.gamma)
     return presentation, depth, new_history
-
-
-def _ext_frame_blocked(s: RenderStatic, vis, cam, hist_blk, ages,
-                       total_states, sample_idx, interpret):
-    """One extended-lighting frame (soft shadows and/or GI) entirely in
-    the kernels' tile-blocked layout: primary kernel → blocked hit
-    geometry → one multi-query occlusion launch (+ cellstate) → blocked
-    composition (EMA + light cube + overlay + gamma).
-
-    This is the round-3 in-kernel-composition treatment extended to the
-    decomposed lighting path: zero image-layout conversions between
-    frames (the old path paid ~20 ``_to_blocks``/``_from_blocks``
-    transposes per temporal frame), history carried blocked as f32.
-    Returns (presentation [T·SUB, LANE, 3], new hist blocks).
-    """
-    from .render_fast import (
-        P_ALPHA, P_GAMMA, P_LIGHT, P_O, P_OVERLAY, P_WIN,
-    )
-    from .render_slab import (
-        blocked_pixels,
-        hit_geometry_blocked,
-        lighting_passes,
-        prep_slabs,
-    )
-
-    n = s.grid_size
-    w, h = s.width, s.height
-    soft = s.soft_shadow_samples > 1
-    gi = s.indirect_lighting
-    rgb, depth, idx = raytrace_tiles(
-        vis, coarse_occupancy(vis), cam, ages,
-        grid_size=n, width=w, height=h, shadow=not soft,
-        interpret=interpret, total_states=total_states,
-        return_blocked=True,
-    )
-    prepped = prep_slabs(vis, [(0, n)], n)
-    q, origin, coords, found, _, d = hit_geometry_blocked(
-        cam, idx, depth, grid_size=n, width=w, height=h
-    )
-    temporal = s.gi_temporal and sample_idx is not None
-    jitter_k = None
-    if soft and temporal:
-        jitter_k = (sample_idx % s.soft_shadow_samples).astype(jnp.int32)
-    occl, gi_rgb = lighting_passes(
-        cam, q, origin, coords, found, prepped,
-        grid_size=n, width=w, height=h,
-        soft_k=s.soft_shadow_samples if soft else None,
-        jitter_k=jitter_k, gi=gi,
-        gi_slot=(
-            (sample_idx % 4).astype(jnp.int32) if (gi and temporal) else None
-        ),
-        interpret=interpret, blocked=True,
-    )
-    if occl is not None:
-        rgb = rgb * occl[..., None]
-    if gi_rgb is not None:
-        rgb = rgb + jnp.where(found[..., None], gi_rgb, 0.0)
-    # Emissive cells (trace_shaded semantics, renderer.py:263-264).
-    from .render_fast import P_EMIS, P_EMISS
-
-    emis = cam[P_EMIS : P_EMIS + 3] * cam[P_EMISS]
-    rgb = jnp.where(found[..., None], rgb + emis, rgb)
-
-    # ---- composition (render_frame_fast static-camera semantics) ------
-    prev_r, prev_g, prev_b, prev_idx = hist_blk
-    prev = jnp.stack([prev_r, prev_g, prev_b], axis=-1)
-    same = (idx == prev_idx) & found
-    alpha = cam[P_ALPHA]
-    mixed = jnp.clip(prev + (rgb - prev) * alpha, 0.0, 1.0)
-    out = jnp.where(same[..., None], mixed, rgb)
-
-    camera_pos = cam[P_O : P_O + 3]
-    lt_near, lt_far = ray_cube_intersect(
-        camera_pos, d, cam[P_LIGHT : P_LIGHT + 3], jnp.float32(0.005)
-    )
-    light_hit = (lt_near <= lt_far) & (lt_far >= 0.0)
-    black = jnp.all(out == 0.0, axis=-1)
-    out = jnp.where((light_hit & black)[..., None], jnp.ones_like(out), out)
-
-    new_hist = (out[..., 0], out[..., 1], out[..., 2], idx)
-
-    # Depth overlay BEFORE gamma (wgsl:880-888 overwrites `out`, then
-    # presentation = pow(out, 1/gamma)) — matching render_frame_fast.
-    px, _, _ = blocked_pixels(w, h)
-    ux = (px.astype(jnp.float32) + 0.5) / cam[P_WIN]
-    overlay = (cam[P_OVERLAY] == 1.0) & (ux < 0.5)
-    overlay_rgb = jnp.stack(
-        [depth, jnp.zeros_like(depth), jnp.zeros_like(depth)], axis=-1
-    )
-    out = jnp.where(overlay[..., None], overlay_rgb, out)
-    pres = jnp.power(out, 1.0 / cam[P_GAMMA])
-    return pres, new_hist
 
 
 def make_fused_loop(s: RenderStatic, spec, frames: int, steps_per_frame: int = 1,
@@ -418,188 +234,46 @@ def make_fused_loop(s: RenderStatic, spec, frames: int, steps_per_frame: int = 1
     the loop (interactive motion goes through Engine.render per frame).
 
     ``reset_every > 0`` restores the input state after every that many
-    frames (benchmarking aid: amortizing the transport dispatch over many
-    frames without letting a growth rule densify the scene — every frame
-    still performs a full CA step + render; only the workload's cell count
-    is pinned to the input scene's band).  The period rides as a TRACED
-    operand, so loops differing only in ``reset_every`` lower to one
-    identical program — the persistent compilation cache serves the
-    second variant without a recompile (bench.py measures both the
-    pinned and the unpinned line).
-
-    When the config allows it (hard shadows, no GI, grid ≤ 256) the loop
-    composes frames entirely in-kernel and carries the temporal history in
-    the kernel's tile-blocked layout — zero XLA image traffic between
-    frames; only the final frame/history are converted to image layout.
+    frames: a benchmarking aid that keeps a growth rule from densifying the
+    scene while every frame still performs a full CA step + render.  The
+    period is a traced operand (``run(..., reset_period)``), so loops that
+    differ only in it share one compiled program.
     """
-    from ..ops.ca_step import fires_plane
-    from ..ops import bitplane
-    from ..ops.ca_step import decay_update
-    from .render_fast import _from_blocks, _to_blocks, raytrace_tiles
+    from ..ops.loop import generation
 
     multistate = spec.total_states > 2
-    nbits = spec.age_bits
-
-    def one_step(st):
-        if not multistate:
-            return fires_plane(st, spec)
-        planes = [st[i] for i in range(nbits)]
-        alive = bitplane.eq_const(planes, 1, nbits)
-        dead = bitplane.eq_const(planes, 0, nbits)
-        fires = fires_plane(alive, spec)
-        return jnp.stack(decay_update(planes, alive, dead, fires, spec.total_states))
+    one_step = generation(spec)
 
     def visibility(st):
         if not multistate:
             return st
         vis = st[0]
-        for i in range(1, nbits):
+        for i in range(1, spec.age_bits):
             vis = vis | st[i]
         return vis
 
-    use_compose = (
-        s.soft_shadow_samples <= 1
-        and not s.indirect_lighting
-        and s.grid_size <= 256
-        and not s.force_sliced
-    )
-    # Extended lighting (soft shadows / single-bounce or temporal GI) at
-    # fused scale: the blocked end-to-end pipeline (_ext_frame_blocked).
-    use_ext_blocked = (
-        not use_compose
-        and s.grid_size <= 256
-        and not s.force_sliced
-        and ((not s.indirect_lighting) or s.gi_temporal
-             or s.indirect_bounces == 1)
-    )
-
-    def maybe_reset(i, st, state, rp):
-        return jax.lax.cond(
-            (rp > 0) & ((i + 1) % jnp.maximum(rp, 1) == 0),
-            lambda: state,
-            lambda: st,
-        )
-
-    if use_ext_blocked:
-        @functools.partial(jax.jit, donate_argnums=(0, 2))
-        def run_impl(state, params: RenderParams, history: FastHistory, rp):
-            h, w = s.height, s.width
-            interp = jax.default_backend() == "cpu"
-            cam = _cam_vec(params, w, h)
-            hcol = history.color.astype(jnp.float32)
-            hblk = (
-                _to_blocks(hcol[..., 0], w, h),
-                _to_blocks(hcol[..., 1], w, h),
-                _to_blocks(hcol[..., 2], w, h),
-                _to_blocks(history.hit_idx, w, h, fill=-1),
-            )
-            zero_pres = jnp.zeros(hblk[0].shape + (3,), jnp.float32)
-
-            def body(i, carry):
-                st, hist, _ = carry
-                for _ in range(steps_per_frame):
-                    st = one_step(st)
-                pres, hist = _ext_frame_blocked(
-                    s, visibility(st), cam, hist,
-                    st if multistate else None, spec.total_states,
-                    i.astype(jnp.int32) if s.gi_temporal else None,
-                    interp,
-                )
-                st = maybe_reset(i, st, state, rp)
-                return st, hist, pres
-
-            state, hist, pres = jax.lax.fori_loop(
-                0, frames, body, (state, hblk, zero_pres)
-            )
-            frame = jnp.stack(
-                [_from_blocks(pres[..., c], w, h) for c in range(3)],
-                axis=-1,
-            )
-            history = FastHistory(
-                color=jnp.stack(
-                    [_from_blocks(hist[c], w, h) for c in range(3)], axis=-1
-                ).astype(jnp.float16),
-                hit_idx=_from_blocks(hist[3], w, h),
-            )
-            return state, history, frame
-
-        def run(state, params, history, reset_period=None):
-            rp = reset_every if reset_period is None else reset_period
-            return run_impl(state, params, history, jnp.int32(rp))
-
-        return run
-
-    if not use_compose:
-        @functools.partial(jax.jit, donate_argnums=(0, 2))
-        def run_impl(state, params: RenderParams, history: FastHistory, rp):
-            h, w = s.height, s.width
-            zero_frame = jnp.zeros((h, w, 3), jnp.float32)
-
-            def body(i, carry):
-                st, hist, _ = carry
-                for _ in range(steps_per_frame):
-                    st = one_step(st)
-                frame, _, hist = render_frame_fast(
-                    s, visibility(st), params, hist, True,
-                    st if multistate else None, spec.total_states,
-                    None, None,
-                    i.astype(jnp.int32) if s.gi_temporal else None,
-                )
-                st = maybe_reset(i, st, state, rp)
-                return st, hist, frame
-
-            return jax.lax.fori_loop(
-                0, frames, body, (state, history, zero_frame)
-            )
-
-        def run(state, params, history, reset_period=None):
-            rp = reset_every if reset_period is None else reset_period
-            return run_impl(state, params, history, jnp.int32(rp))
-
-        return run
-
     @functools.partial(jax.jit, donate_argnums=(0, 2))
     def run_impl(state, params: RenderParams, history: FastHistory, rp):
-        h, w = s.height, s.width
-        interp = jax.default_backend() == "cpu"
-        cam = _cam_vec(params, w, h)
-        # Blocked history rides the loop carry as f32 — Mosaic has no f16
-        # type; quantize back to the f16 FastHistory only at loop exit.
-        hcol = history.color.astype(jnp.float32)
-        hblk = (
-            _to_blocks(hcol[..., 0], w, h),
-            _to_blocks(hcol[..., 1], w, h),
-            _to_blocks(hcol[..., 2], w, h),
-            _to_blocks(history.hit_idx, w, h, fill=-1),
-        )
-        zero_pres = tuple(jnp.zeros_like(hblk[3], jnp.float32) for _ in range(3))
+        zero_frame = jnp.zeros((s.height, s.width, 3), jnp.float32)
 
         def body(i, carry):
             st, hist, _ = carry
             for _ in range(steps_per_frame):
                 st = one_step(st)
-            vis = visibility(st)
-            outs = raytrace_tiles(
-                vis, coarse_occupancy(vis), cam,
-                st if multistate else None, hist,
-                grid_size=s.grid_size, width=w, height=h,
-                interpret=interp, total_states=spec.total_states,
+            frame, _, hist = render_frame_fast(
+                s, visibility(st), params, hist, True,
+                st if multistate else None, spec.total_states,
+                None, None,
+                i.astype(jnp.int32) if s.gi_temporal else None,
             )
-            pres_r, pres_g, pres_b, depth_b, idx_b, nhr, nhg, nhb = outs
-            st = maybe_reset(i, st, state, rp)
-            return st, (nhr, nhg, nhb, idx_b), (pres_r, pres_g, pres_b)
+            st = jax.lax.cond(
+                (rp > 0) & ((i + 1) % jnp.maximum(rp, 1) == 0),
+                lambda: state,
+                lambda: st,
+            )
+            return st, hist, frame
 
-        state, hist, pres = jax.lax.fori_loop(
-            0, frames, body, (state, hblk, zero_pres)
-        )
-        frame = jnp.stack([_from_blocks(p, w, h) for p in pres], axis=-1)
-        history = FastHistory(
-            color=jnp.stack(
-                [_from_blocks(hist[i], w, h) for i in range(3)], axis=-1
-            ).astype(jnp.float16),
-            hit_idx=_from_blocks(hist[3], w, h),
-        )
-        return state, history, frame
+        return jax.lax.fori_loop(0, frames, body, (state, history, zero_frame))
 
     def run(state, params, history, reset_period=None):
         rp = reset_every if reset_period is None else reset_period

@@ -81,9 +81,9 @@ class EngineConfig:
     width: int = 1920
     height: int = 1080
     # Render pipeline: "reference" = exact replication of the WGSL renderer
-    # (stochastic march + reprojection, renderer.py); "fast" = the fused
-    # Pallas DDA kernel (render_fast.py) — deterministic exact traversal,
-    # grid_size ≤ 256.
+    # (stochastic march + reprojection, renderer.py); "fast" = the exact
+    # DDA traversal (render/traverse.py) with XLA shading and composition,
+    # every grid size.
     pipeline: str = "fast"
     # Reference-pipeline shader variant: "clustered" (the active
     # pathtraced_fragment_clustered.wgsl, Cook-Torrance PBR) or "simple"
@@ -105,10 +105,10 @@ class EngineConfig:
     emissive_strength: float = 0.0
     # --- multi-chip scaling (BASELINE config 5; new capability) ----------
     # 0 = single device.  N > 1 builds an N-device 1-D mesh: the CA state
-    # is Z-sharded with ICI halo exchange (parallel/sharded.py) and frames
+    # is Z-sharded with halo exchange (parallel/sharded.py) and frames
     # are rendered pixel-row-sharded over the replicated packed grid.
     mesh_devices: int = 0
-    # Pod scale: (mz, my) builds a 2-D (z, y) mesh — the grid shards along
+    # Multi-host scale: (mz, my) builds a 2-D (z, y) mesh — the grid shards along
     # Z and Y (z-then-y halo exchange), frames row-shard over all mz·my
     # devices.  Mutually consistent with mesh_devices (product must match
     # when both are set).
@@ -130,10 +130,6 @@ class EngineConfig:
             raise ValueError(f"unknown render_variant {self.render_variant!r}")
         if self.render_variant == "simple":
             self.pipeline = "reference"  # only the exact path has it
-        # Fast pipeline covers the full reference grid range (≤ 1024,
-        # main_pathtraced.js:274-277): ≤ 256 the fused VMEM-resident
-        # kernel; 257-512 the z-slab sliced path; 513-1024 the
-        # (z-slab × x-chunk) brick path (render_slab.py).
         if isinstance(self.light, dict):
             self.light = LightConfig(**self.light)
         if self.mesh_shape is not None:

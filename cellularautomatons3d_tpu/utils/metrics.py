@@ -1,38 +1,27 @@
 """Timing/metrics helpers (SURVEY.md §5: the steps/sec + frame-ms counters
-the reference lacks).
-
-``device_sync`` forces *real* completion by reading one element back to the
-host — on some experimental PJRT transports ``block_until_ready`` returns
-before execution finishes, which silently corrupts wall-clock timing.
-"""
+the reference lacks)."""
 
 from __future__ import annotations
 
 import time
 
-import numpy as np
 import jax
 
-__all__ = ["device_sync", "time_fn", "Timer"]
-
-
-def device_sync(x) -> None:
-    """Block until ``x`` (any pytree of arrays) is actually computed."""
-    leaf = jax.tree.leaves(x)[0]
-    np.asarray(jax.numpy.ravel(leaf)[:1])
+__all__ = ["time_fn", "Timer"]
 
 
 def time_fn(fn, *args, reps: int = 5, warmup: int = 1, **kwargs) -> float:
-    """Median wall-clock seconds per call, with true device sync."""
+    """Median wall-clock seconds per call, each ending when the device has
+    finished (``jax.block_until_ready``)."""
     out = None
     for _ in range(warmup):
         out = fn(*args, **kwargs)
-    device_sync(out)
+    jax.block_until_ready(out)
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
-        device_sync(out)
+        jax.block_until_ready(out)
         times.append(time.perf_counter() - t0)
     times.sort()
     return times[len(times) // 2]

@@ -3,7 +3,7 @@ performance.now(); here: jax.profiler traces + section timing).
 
 Usage::
 
-    with profile_trace("/tmp/trace"):      # XLA/TPU trace for xprof
+    with profile_trace("trace_dir"):       # device trace for XProf/Perfetto
         engine.step(100)
 
     stats = profile_engine(engine, steps=50, frames=10)
@@ -16,7 +16,6 @@ import time
 
 import jax
 
-from .metrics import device_sync
 
 __all__ = ["profile_trace", "profile_engine"]
 
@@ -32,21 +31,21 @@ def profile_trace(log_dir: str):
 
 
 def profile_engine(engine, steps: int = 50, frames: int = 5) -> dict:
-    """Wall-clock engine stats with true device sync (see metrics.py on why
-    ``block_until_ready`` is not used)."""
+    """Wall-clock engine stats; every timed section ends in
+    ``jax.block_until_ready``."""
     engine.step(1)
-    device_sync(engine.state)
+    jax.block_until_ready(engine.state)
     t0 = time.perf_counter()
     engine.step(steps)
-    device_sync(engine.state)
+    jax.block_until_ready(engine.state)
     step_s = (time.perf_counter() - t0) / steps
 
     frame = engine.render()
-    device_sync(frame)
+    jax.block_until_ready(frame)
     t0 = time.perf_counter()
     for _ in range(frames):
         frame = engine.render()
-    device_sync(frame)
+    jax.block_until_ready(frame)
     frame_s = (time.perf_counter() - t0) / frames
 
     return {

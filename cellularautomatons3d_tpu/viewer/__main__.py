@@ -15,8 +15,8 @@ def main():
     p.add_argument(
         "--mesh", type=int, default=0, metavar="N",
         help="shard the engine over an N-device 1-D mesh (config 5: "
-        "z-sharded CA step + row-sharded render).  On a TPU-less host, "
-        "combine with JAX_PLATFORMS=cpu "
+        "z-sharded CA step + row-sharded render).  On a host with fewer "
+        "devices, combine with JAX_PLATFORMS=cpu "
         "XLA_FLAGS=--xla_force_host_platform_device_count=N",
     )
     args = p.parse_args()

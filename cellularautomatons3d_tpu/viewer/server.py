@@ -1,7 +1,7 @@
 """Thin interactive viewer: a localhost HTTP app over the Engine.
 
 The reference is a browser app (index.html + ui.js + a canvas); this viewer
-restores that interaction surface on top of the TPU engine: a live frame
+restores that interaction surface on top of the engine: a live frame
 stream, the declarative control panel (every field of the reference UI,
 main_pathtraced.js:259-448, incl. the applyOnRestart split and the pulsing
 restart marker), WASD/R/F + arrow/Q/E keys, drag-look and wheel speed —
@@ -137,7 +137,9 @@ class ViewerServer:
         }
 
     # ------------------------------------------------------------------ #
-    def serve(self, port: int = 8000, host: str = "127.0.0.1"):
+    def make_server(self, port: int = 8000, host: str = "127.0.0.1"):
+        """The HTTP server over this viewer, not yet serving (port 0 picks
+        a free port: see ``server_address``)."""
         viewer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -252,7 +254,10 @@ class ViewerServer:
                 out = viewer.handle_input(msg)
                 self._send(200, json.dumps(out).encode(), "application/json")
 
-        httpd = ThreadingHTTPServer((host, port), Handler)
+        return ThreadingHTTPServer((host, port), Handler)
+
+    def serve(self, port: int = 8000, host: str = "127.0.0.1"):
+        httpd = self.make_server(port, host)
         print(f"viewer: http://{host}:{port}/  (grid {self.engine.config.grid_size}³)")
         httpd.serve_forever()
 

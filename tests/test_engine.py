@@ -31,7 +31,6 @@ def test_step_advances_counter_and_state():
     assert eng.state_dense().sum() > 1
 
 
-@pytest.mark.heavy
 def test_tick_cadence():
     # Default step duration 48 ms at 16.667 ms frames: step fires on the
     # 3rd frame (accumulated 50 ms ≥ 48), as in main_pathtraced.js:1838-1847.
@@ -70,7 +69,6 @@ def test_live_vs_restart_params():
     assert eng.state_dense().sum() == 1  # reseeded
 
 
-@pytest.mark.heavy
 def test_multistate_engine_runs_and_renders():
     eng = small_engine(neighbourhood="moore", born="4", survive="4", total_states=5)
     eng.step(2)
@@ -182,7 +180,6 @@ def test_live_sample_count_change_applies():
     assert np.isfinite(f).all()
 
 
-@pytest.mark.heavy
 def test_live_resize_reallocates_history():
     # main_pathtraced.js:781-797 resizes mid-run; width/height are live.
     eng = small_engine()
@@ -274,4 +271,17 @@ def test_checkpoint_orbax_unknown_backend():
     import pytest as _pytest
 
     with _pytest.raises(ValueError):
-        eng.save("/tmp/x.npz", backend="hdf5")
+        eng.save("x.npz", backend="hdf5")
+
+
+def test_run_fused_reuses_loop_per_shape():
+    """run_fused builds one loop per (frames, steps_per_frame) and reuses
+    it; a render-asset change drops the cached loops."""
+    eng = small_engine()
+    eng.run_fused(2)
+    loop = eng._fused_loops[(2, 1)]
+    eng.run_fused(2)
+    assert eng._fused_loops == {(2, 1): loop}
+    assert eng.simulation_step == 4
+    eng.set("shadow_samples", 3)
+    assert eng._fused_loops == {}

@@ -1,7 +1,7 @@
 """Mesh-aware Engine (BASELINE config 5 as a first-class API).
 
 Runs on the virtual 8-device CPU mesh (conftest.py): Z-sharded CA stepping
-with ICI halo exchange plus pixel-row-sharded rendering, compared against
+with a halo exchange plus pixel-row-sharded rendering, compared against
 a single-device Engine for exact state/frame parity.
 """
 
@@ -30,7 +30,6 @@ def test_mesh_engine_steps_match_single_device():
 
 
 @needs_mesh
-@pytest.mark.heavy
 def test_mesh_engine_fast_frame_matches_single_device():
     em = Engine(mesh_devices=8, **COMMON)
     e1 = Engine(**COMMON)
@@ -43,7 +42,6 @@ def test_mesh_engine_fast_frame_matches_single_device():
 
 
 @needs_mesh
-@pytest.mark.heavy
 def test_mesh_engine_tick_accumulates_history():
     em = Engine(mesh_devices=8, **COMMON)
     em.tick()
@@ -66,7 +64,6 @@ def test_mesh_engine_reference_pipeline():
 
 
 @needs_mesh
-@pytest.mark.heavy
 def test_mesh_engine_multistate():
     em = Engine(mesh_devices=8, total_states=4, **COMMON)
     e1 = Engine(total_states=4, **COMMON)
@@ -86,7 +83,6 @@ def test_mesh_devices_validation():
 
 
 @needs_mesh
-@pytest.mark.heavy
 def test_mesh_engine_panning_keeps_history_via_reprojection():
     """Under camera motion, the mesh path must reproject history within
     each row shard (round-2: it hard-coded camera_static=True, ghosting
@@ -128,7 +124,6 @@ def test_mesh_engine_panning_keeps_history_via_reprojection():
 
 
 @needs_mesh
-@pytest.mark.heavy
 def test_mesh_engine_run_fused_matches_single_device():
     """Mesh-mode fused loop (round-3 verdict item: `run_fused` raised for
     mesh engines): k frames of (sharded step + row-sharded frame) chained
@@ -146,25 +141,20 @@ def test_mesh_engine_run_fused_matches_single_device():
     np.testing.assert_allclose(fm, f1, rtol=3e-3, atol=3e-4)
 
 
-@needs_mesh
-@pytest.mark.heavy
-def test_mesh_engine_sliced_render_matches_single_device():
-    """Mesh + SLICED fast render (the > 256³ config-5 composition):
-    `raytrace_sliced` inside `shard_map`, forced at test scale via
-    RenderStatic.force_sliced with 2 z-slabs × 2 x-chunks — the brick
-    scan, min-t composite and occlusion kernels all execute per row
-    shard.  Round-3 verdict: this composition had never executed."""
-    import dataclasses
-
-    em = Engine(mesh_devices=8, **COMMON)
+def test_mesh4_engine_render_and_run_fused_match_single_device():
+    """A 4-device z mesh (the four-card layout): sharded steps with the
+    halo exchange, a row-sharded render() and run_fused() must match one
+    device — state bit-exact, frames within the parity tolerances."""
+    em = Engine(mesh_devices=4, **COMMON)
     e1 = Engine(**COMMON)
-    forced = dict(force_sliced=True, slab_planes=32, x_chunk_cells=32)
-    em.render_static = dataclasses.replace(em.render_static, **forced)
     em.step(4)
     e1.step(4)
-    fm = np.asarray(em.render())
-    f1 = np.asarray(e1.render())  # single-device fused path
-    assert fm.shape == f1.shape == (64, 128, 3)
+    np.testing.assert_array_equal(em.state_dense(), e1.state_dense())
+    np.testing.assert_allclose(np.asarray(em.render()),
+                               np.asarray(e1.render()), rtol=3e-3, atol=3e-4)
+    fm = np.asarray(em.run_fused(3))
+    f1 = np.asarray(e1.run_fused(3))
+    np.testing.assert_array_equal(em.state_dense(), e1.state_dense())
     np.testing.assert_allclose(fm, f1, rtol=3e-3, atol=3e-4)
 
 
@@ -181,7 +171,6 @@ def test_mesh2d_engine_steps_match_single_device():
 
 
 @needs_mesh
-@pytest.mark.heavy
 def test_mesh2d_engine_fast_frame_matches_single_device():
     em = Engine(mesh_shape=(2, 4), **COMMON)
     e1 = Engine(**COMMON)

@@ -11,17 +11,14 @@ The core invariant: the UNIFORM AVERAGE of the temporal mode's per-frame
 outputs over one full rotation equals the non-temporal (all-samples-
 per-frame) output, because each rotated sample is bit-identical to the
 corresponding static sample (soft_shadow_jitter's constant table;
-indirect_bounce's dynamic layer indexing).
+lighting's dynamic layer indexing).
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
-import pytest
 
 import cellularautomatons3d_tpu as ca
 from cellularautomatons3d_tpu.render import renderer as R
-from cellularautomatons3d_tpu.render.render_fast import pack_cam
 from cellularautomatons3d_tpu.render.renderer import RenderStatic
 from cellularautomatons3d_tpu.render.renderer_fast import trace_shaded
 from cellularautomatons3d_tpu.utils import mat4
@@ -38,26 +35,32 @@ def _scene():
     return jnp.asarray(ca.pack_grid(dense))
 
 
-def _cam():
+def _params():
     view = mat4.initial_view_matrix()
-    return jnp.asarray(
-        pack_cam(
-            view, width=W, height=H,
-            light_pos=(0.721, 1.0, 1.0), light_magnitude=5.0,
-            cell_size=0.85, roughness=0.29,
-            base_reflectivity=(0.17, 0.17, 0.17),
-            material_color=(0.0, 0.0, 0.0),
-            light_radius=0.08, elapsed_time=0.37,
-        )
+    proj = mat4.initial_projection_matrix(W, H)
+    return R.RenderParams(
+        view_mat=jnp.asarray(view),
+        prev_view_mat=jnp.asarray(view),
+        prev_proj_view=jnp.asarray(mat4.multiply(proj, mat4.inverse(view))),
+        elapsed_time=jnp.float32(0.37),
+        cell_size=jnp.float32(0.85),
+        temporal_alpha=jnp.float32(0.1),
+        gamma=jnp.float32(2.0),
+        roughness=jnp.float32(0.29),
+        base_reflectivity=jnp.full((3,), 0.17, jnp.float32),
+        material_color=jnp.zeros((3,), jnp.float32),
+        light_pos=jnp.asarray([0.721, 1.0, 1.0], jnp.float32),
+        light_magnitude=jnp.float32(5.0),
+        show_depth_overlay=jnp.float32(0.0),
+        light_radius=jnp.float32(0.08),
     )
 
 
-@pytest.mark.heavy
 def test_temporal_rotation_mean_equals_full_lighting():
     """Mean over a full 4-sample rotation of the temporal mode ==
     the non-temporal frame (soft_k=4 average + 4-slot GI sum)."""
     vol = _scene()
-    cam = _cam()
+    params = _params()
     base = dict(
         width=W, height=H, grid_size=N,
         indirect_lighting=True, soft_shadow_samples=4,
@@ -65,13 +68,11 @@ def test_temporal_rotation_mean_equals_full_lighting():
     s_full = RenderStatic(**base)
     s_temp = RenderStatic(**base, gi_temporal=True)
 
-    rgb_full, depth_full, idx_full = trace_shaded(
-        s_full, vol, cam, None, 2, True
-    )
+    rgb_full, depth_full, idx_full, _ = trace_shaded(s_full, vol, params)
     acc = jnp.zeros_like(rgb_full)
     for k in range(4):
-        rgb_k, depth_k, idx_k = trace_shaded(
-            s_temp, vol, cam, None, 2, True, jnp.int32(k)
+        rgb_k, depth_k, idx_k, _ = trace_shaded(
+            s_temp, vol, params, sample_idx=jnp.int32(k)
         )
         np.testing.assert_array_equal(np.asarray(idx_k), np.asarray(idx_full))
         np.testing.assert_array_equal(
@@ -83,52 +84,34 @@ def test_temporal_rotation_mean_equals_full_lighting():
     )
 
 
-@pytest.mark.heavy
 def test_single_slot_estimates_sum():
-    """indirect_bounce(slot=i) == 4 × slot i's contribution: the mean of
+    """lighting_passes(gi_slot=i) == 4 × slot i's contribution: the mean of
     the four single-slot calls equals the full 4-slot call."""
-    from cellularautomatons3d_tpu.render.render_slab import (
-        hit_geometry,
-        indirect_bounce,
-        prep_slabs,
-    )
-    from cellularautomatons3d_tpu.ops.occupancy import coarse_occupancy
-    from cellularautomatons3d_tpu.render.render_fast import raytrace_tiles
+    from cellularautomatons3d_tpu.render import lighting, traverse
+    from cellularautomatons3d_tpu.render.renderer_fast import pixel_rays
 
     vol = _scene()
-    cam = _cam()
-    _, depth, idx = raytrace_tiles(
-        vol, coarse_occupancy(vol), cam, grid_size=N, width=W, height=H,
-        shadow=False, interpret=True,
-    )
-    q, origin, coords, found, _ = hit_geometry(
-        cam, idx, depth, grid_size=N, width=W, height=H
-    )
-    prepped = prep_slabs(vol, [(0, N)], N)
-    kw = dict(grid_size=N, width=W, height=H, interpret=True)
-    full = np.asarray(indirect_bounce(
-        vol, cam, q, origin, coords, found, prepped, **kw
-    ))
-    acc = np.zeros_like(full)
-    for i in range(4):
-        acc += np.asarray(indirect_bounce(
-            vol, cam, q, origin, coords, found, prepped,
-            slot=jnp.int32(i), **kw
-        ))
+    p = _params()
+    o = p.view_mat[:3, 3]
+    uv, dirs = pixel_rays(p.view_mat, W, H)
+    depth, idx, _ = traverse.trace_primary(
+        vol, dirs, o, p.light_pos, p.cell_size, grid_size=N, shadow=False)
+    q, origin, coords, found = lighting.hit_geometry(o, dirs, idx, depth, N)
+
+    def gi(slot):
+        return np.asarray(lighting.lighting_passes(
+            vol, p, q, origin, coords, found, uv, grid_size=N, gi=True,
+            gi_slot=slot)[1])
+
+    full = gi(None)
+    assert np.abs(full).max() > 0
+    acc = sum(gi(jnp.int32(i)) for i in range(4))
     np.testing.assert_allclose(acc / 4.0, full, rtol=2e-5, atol=1e-6)
-    with pytest.raises(ValueError):
-        indirect_bounce(
-            vol, cam, q, origin, coords, found, prepped,
-            slot=jnp.int32(0), bounces=2, **kw
-        )
 
 
-@pytest.mark.heavy
-def test_ext_blocked_loop_matches_frame_sequence():
-    """The blocked end-to-end extended-lighting loop (make_fused_loop's
-    _ext_frame_blocked path: blocked hit geometry, single multi-query
-    occlusion launch, blocked composition) must match iterating
-    render_frame_fast through the image-layout path, frame for frame."""
+def test_temporal_fused_loop_matches_frame_sequence():
+    """The fused loop with temporal soft shadows + GI (one occlusion launch
+    per frame) must match iterating render_frame_fast, frame for frame."""
     from cellularautomatons3d_tpu.render.renderer import RenderParams
     from cellularautomatons3d_tpu.render.renderer_fast import (
         init_fast_history,
@@ -178,8 +161,6 @@ def test_ext_blocked_loop_matches_frame_sequence():
     np.testing.assert_array_equal(
         np.asarray(hist_out.hit_idx), np.asarray(hist.hit_idx)
     )
-    # Loop history rides f32 and quantizes once at exit; the per-frame
-    # path re-quantizes to f16 every frame — tolerance covers that.
     np.testing.assert_allclose(
         np.asarray(frame), np.asarray(frame2), rtol=2e-3, atol=2e-3
     )

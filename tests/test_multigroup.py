@@ -1,12 +1,11 @@
 """Multi-x-group coarse occupancy layouts (grids > 256) and the 288-480
 partial-group case.
 
-Round-2 regression (ADVICE r2, high): grids 288-480 (packed word count
-9-15, neither ≤ 8 nor a multiple of 8) crashed `coarse_occupancy`; and the
-multi-x-group code paths that 512³ exercises — group assembly
-(ops/occupancy.py), `dilate_occupancy`'s cross-group carries and
-`fetch_coarse_bit`'s nbk > 32 branch (render_fast.py) — had no coverage.
-These tests run the real layouts at N=320 with a tiny window.
+Grids 288-480 have a packed word count (9-15) that is neither ≤ 8 nor a
+multiple of 8, so their last x-block group is partial.  These tests run
+the real layouts at N=320 and 512: the mip's group assembly
+(ops/occupancy.py) and the traversal kernel's skip test across x-block
+groups, with a tiny window.
 """
 
 import numpy as np
@@ -17,7 +16,6 @@ import cellularautomatons3d_tpu as ca
 from cellularautomatons3d_tpu.ops.occupancy import (
     BLOCK,
     coarse_occupancy,
-    dilate_occupancy,
 )
 from cellularautomatons3d_tpu.ops.packing import pack_grid
 
@@ -56,47 +54,31 @@ def test_coarse_occupancy_320_no_crash():
     assert out.shape == (40, 2 * 40)  # XG=2 (partial second group)
 
 
-@pytest.mark.parametrize("n", [320, 512])
-def test_dilate_occupancy_cross_group_carries(n):
-    """x-dilation must carry across the 32-block group-word boundary."""
-    rng = np.random.default_rng(2)
-    dense = np.zeros((n, n, n), np.uint8)
-    # Live cells straddling the group boundary (x-blocks 31 and 32) plus
-    # random fill.
-    dense[8, 8, 31 * 8] = 1
-    dense[64, 64, 32 * 8] = 1
-    dense |= (rng.random((n, n, n)) < 0.0002).astype(np.uint8)
-    yc = n // BLOCK
-    coarse = coarse_occupancy(jnp.asarray(pack_grid(dense)))
-    occ = dense_occupancy(dense)  # [Zc, Yc, Xc]
+def test_kernel_skips_across_x_groups_320():
+    """Kernel vs plain reference at N=320 with oblique rays whose column
+    block boxes straddle x-block groups (the two-word skip test)."""
+    from cellularautomatons3d_tpu.render import traverse
+    from cellularautomatons3d_tpu.render.renderer_fast import pixel_rays
+    from cellularautomatons3d_tpu.utils import mat4
 
-    for dz, dy in ((True, True), (False, False)):
-        dil = dilate_occupancy(coarse, dilate_z=dz, yc=yc, dilate_y=dy)
-        got = unpack_groups(dil, yc)[:, :, : n // BLOCK]
-        # Exact (clipped) box dilation oracle; axis order is irrelevant.
-        want = occ.copy()
-        want[:, :, 1:] |= occ[:, :, :-1]
-        want[:, :, :-1] |= occ[:, :, 1:]
-        if dy:
-            w2 = want.copy()
-            want[:, 1:] |= w2[:, :-1]
-            want[:, :-1] |= w2[:, 1:]
-        if dz:
-            w3 = want.copy()
-            want[1:] |= w3[:-1]
-            want[:-1] |= w3[1:]
-        # The implementation wraps at z/y edges (documented conservative);
-        # the interior must be exact — including the cross-group x carries.
-        np.testing.assert_array_equal(
-            got[1:-1, 1:-1, :], want[1:-1, 1:-1, :]
-        )
-        # Everywhere: never misses occupancy (conservativeness).
-        assert not (~got & want).any()
-
-
-# The end-to-end N=320 sliced-render oracle lives in
-# tests/test_render_slab.py::test_sliced_multigroup_320_matches_oracle
-# (with the interpret-mode compile-depth workaround).
+    n, w, h = 320, 32, 16
+    rng = np.random.default_rng(9)
+    dense = (rng.random((n, n, n)) < 0.002).astype(np.uint8)
+    vol = jnp.asarray(pack_grid(dense))
+    view = mat4.translate(
+        mat4.rotate(mat4.initial_view_matrix(), (0, 1, 0), 0.9), (0, 0, 0.2))
+    _, dirs = pixel_rays(jnp.asarray(view), w, h)
+    outs = [
+        [np.asarray(a) for a in traverse.trace_primary(
+            vol, dirs, jnp.asarray(view[:3, 3]), (0.7, 1.0, 1.0), 0.85,
+            grid_size=n, shadow=True, kernel=kernel)]
+        for kernel in (False, True)
+    ]
+    (d_r, i_r, f_r), (d_k, i_k, f_k) = outs
+    assert (i_r >= 0).sum() > 0
+    np.testing.assert_array_equal(i_k, i_r)
+    np.testing.assert_array_equal(d_k, d_r)
+    np.testing.assert_array_equal(f_k, f_r)
 
 
 def test_engine_config_320_keeps_fast_pipeline():

@@ -55,20 +55,3 @@ def unpack_groups(rows, yc):
     bits = (rows.reshape(r, xg, yc)[..., None]
             >> np.arange(32, dtype=np.uint32)) & 1
     return bits.astype(bool).transpose(0, 2, 1, 3).reshape(r, yc, xg * 32)
-
-
-def test_plane_occupancy_matches_dense():
-    from cellularautomatons3d_tpu.ops.occupancy import plane_occupancy
-
-    rng = np.random.default_rng(4)
-    for n in (64, 320):
-        dense = (rng.random((n, n, n)) < 0.01).astype(np.uint8)
-        rows = np.asarray(plane_occupancy(jnp.asarray(pack_grid(dense))))
-        yc = n // BLOCK
-        assert rows.shape == (n, (-(-n // 256)) * yc)
-        got = unpack_groups(rows, yc)[:, :, : n // BLOCK]
-        want = (
-            dense.reshape(n, yc, BLOCK, n // BLOCK, BLOCK)
-            .any(axis=(2, 4))
-        )
-        np.testing.assert_array_equal(got, want)

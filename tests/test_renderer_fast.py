@@ -19,21 +19,6 @@ from cellularautomatons3d_tpu.render.renderer_fast import (
 from cellularautomatons3d_tpu.utils import mat4
 
 
-import jax as _jax
-import pytest
-_pytest = pytest
-
-
-@_pytest.fixture(autouse=True)
-def _eager_interpret():
-    """Run every test in this module under disable_jit: the one-module
-    jitted-interpret compiles of these render graphs crash the CPU XLA
-    compiler nondeterministically (stack-limit-adjacent recursive pass);
-    eager execution compiles each interpreted kernel as its own bounded
-    module.  Semantics are unchanged (jit == eager by construction); the
-    jitted composition runs on-chip in tests/test_tpu_kernel.py."""
-    with _jax.disable_jit():
-        yield
 
 N = 64
 W_IMG, H_IMG = 128, 64
@@ -71,7 +56,6 @@ STATIC = R.RenderStatic(
 )
 
 
-@pytest.mark.heavy
 def test_static_camera_ema_accumulates():
     packed = scene()
     view = mat4.initial_view_matrix()
@@ -91,7 +75,6 @@ def test_static_camera_ema_accumulates():
     assert (out[hit] > raw[hit] + 0.1).mean() > 0.9
 
 
-@pytest.mark.heavy
 def test_panning_camera_keeps_history_via_reprojection():
     packed = scene()
     view_a = mat4.initial_view_matrix()
@@ -125,7 +108,6 @@ def test_panning_camera_keeps_history_via_reprojection():
     assert pulled > 0.5, f"only {pulled:.2%} of hit pixels kept history"
 
 
-@pytest.mark.heavy
 def test_depth_overlay_not_in_history():
     packed = scene()
     params = make_params(mat4.initial_view_matrix())
@@ -143,11 +125,9 @@ def test_depth_overlay_not_in_history():
     assert hcol[:, : W_IMG // 2][hit_left][:, 1:].max() > 0
 
 
-@pytest.mark.heavy
 def test_fused_compose_loop_matches_frame_sequence():
-    """The in-kernel-composition loop (blocked history, EMA + light cube +
-    gamma inside the Pallas kernel) must match iterating render_frame_fast
-    through the XLA composition, frame for frame."""
+    """The fused on-device loop must match iterating render_frame_fast
+    frame for frame."""
     from cellularautomatons3d_tpu.render.renderer_fast import make_fused_loop
 
     spec = ca.AutomatonSpec.from_config(ca.EngineConfig(grid_size=N))

@@ -139,7 +139,7 @@ def test_config5_sharded_step_plus_render(mesh):
 
 # ------------------------------------------------------- 2-D (z, y) mesh --
 #
-# Pod-scale decomposition: the grid shards along Z and Y; the step
+# Multi-host-scale decomposition: the grid shards along Z and Y; the step
 # exchanges z word-planes, then y word-columns of the z-padded slab
 # (corner ribbons ride the second exchange).  Differential-equal to the
 # single-device step for every boundary mode.

@@ -1,102 +1,67 @@
 #!/usr/bin/env python
-"""Capture a jax.profiler trace of the production frame on real TPU.
+"""Capture a jax.profiler trace of the fused production loop on a GPU.
 
-VERDICT r2 task 9: all round-1/2 tuning was ablation-only; a real trace
-attributes the frame's fixed floor (sweep machinery vs fetches vs
-shading) and should pay for the next perf round.
-
-Writes a TensorBoard-loadable trace to --out (default /tmp/ca3d_trace)
-and prints the top device ops if the trace protos are readable.
+Writes the trace under --out (default ``chiprun_out/trace`` in the
+checkout) and lists the ``.xplane.pb`` files; ``tools/xplane_summary.py``
+aggregates their device-op durations.
 
 Usage: python tools/profile_trace.py [--out DIR] [--frames K]
                                      [--mode headline|gi_temporal|gi]
+                                     [--grid N]
 """
 
 import argparse
-import time
+import glob
+import os
+import sys
 
-import os as _os
-import sys as _sys
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
-# Runnable from anywhere: the package lives at the repo root, one
-# level above tools/ (script dir is sys.path[0], not the root).
-_REPO_ROOT = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
-if _REPO_ROOT not in _sys.path:
-    _sys.path.insert(0, _REPO_ROOT)
+import jax  # noqa: E402
 
-import jax
-import jax.numpy as jnp
+import cellularautomatons3d_tpu as ca  # noqa: E402
+from cellularautomatons3d_tpu.render import renderer_fast as RFW  # noqa: E402
+from cellularautomatons3d_tpu.render.renderer import RenderStatic  # noqa: E402
+from cellularautomatons3d_tpu.utils import parity  # noqa: E402
+from cellularautomatons3d_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-
-import cellularautomatons3d_tpu as ca
-from cellularautomatons3d_tpu.ops.loop import make_multi_step
-from cellularautomatons3d_tpu.render import renderer_fast as RFW
-from cellularautomatons3d_tpu.render.renderer import RenderParams, RenderStatic
-from cellularautomatons3d_tpu.utils import mat4
-from cellularautomatons3d_tpu.utils.metrics import device_sync
-
-GRID = 256
 WIDTH, HEIGHT = 1920, 1080
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="/tmp/ca3d_trace")
+    ap.add_argument("--out", default=os.path.join(_ROOT, "chiprun_out", "trace"))
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--mode", default="headline",
                     choices=("headline", "gi_temporal", "gi"))
-    ap.add_argument("--grid", type=int, default=GRID,
-                    help="grid size (1024 traces the brick path)")
+    ap.add_argument("--grid", type=int, default=256)
     args = ap.parse_args()
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("profile_trace.py needs a CUDA GPU")
+    enable_compile_cache()
 
     grid = args.grid
     spec = ca.AutomatonSpec.from_config(ca.EngineConfig(grid_size=grid))
-    state = jnp.asarray(ca.pack_grid(ca.seed_center(grid)))
-    state = make_multi_step(spec, 80 if grid <= 256 else 200)(state)
-    device_sync(state)
-
-    view = mat4.initial_view_matrix()
-    proj = mat4.initial_projection_matrix(WIDTH, HEIGHT)
-    pv = mat4.multiply(proj, mat4.inverse(view))
-    params = RenderParams(
-        view_mat=jnp.asarray(view), prev_view_mat=jnp.asarray(view),
-        prev_proj_view=jnp.asarray(pv), elapsed_time=jnp.float32(0.1),
-        cell_size=jnp.float32(0.85), temporal_alpha=jnp.float32(0.1),
-        gamma=jnp.float32(2.0), roughness=jnp.float32(0.29),
-        base_reflectivity=jnp.full((3,), 0.17, jnp.float32),
-        material_color=jnp.zeros((3,), jnp.float32),
-        light_pos=jnp.asarray([0.721, 1.0, 1.0], jnp.float32),
-        light_magnitude=jnp.float32(5.0),
-        show_depth_overlay=jnp.float32(0.0),
-    )
-    lighting = {}
-    if args.mode == "gi_temporal":
-        lighting = dict(indirect_lighting=True, soft_shadow_samples=4,
-                        gi_temporal=True)
-    elif args.mode == "gi":
-        lighting = dict(indirect_lighting=True, soft_shadow_samples=4)
-    s = RenderStatic(width=WIDTH, height=HEIGHT, grid_size=grid,
-                     depth_samples=35, shadow_samples=30, **lighting)
-    run = RFW.make_fused_loop(s, spec, args.frames)
-    hist = RFW.init_fast_history(WIDTH, HEIGHT)
-    st, hist, frame = run(state + 0, params, hist)  # compile + warm
-    device_sync(frame)
+    state = parity.grown_scene(grid, 80)
+    lighting = {
+        "headline": {},
+        "gi": dict(indirect_lighting=True, soft_shadow_samples=4),
+        "gi_temporal": dict(indirect_lighting=True, soft_shadow_samples=4,
+                            gi_temporal=True),
+    }[args.mode]
+    s = RenderStatic(width=WIDTH, height=HEIGHT, grid_size=grid, **lighting)
+    params = parity.frame_params(WIDTH, HEIGHT, light_radius=0.08)
+    run = RFW.make_fused_loop(s, spec, args.frames, reset_every=10)
+    jax.block_until_ready(
+        run(state + 0, params, RFW.init_fast_history(WIDTH, HEIGHT)))
 
     with jax.profiler.trace(args.out):
-        st, hist, frame = run(state + 0, params, hist)
-        device_sync(frame)
+        jax.block_until_ready(
+            run(state + 0, params, RFW.init_fast_history(WIDTH, HEIGHT)))
     print("trace written to", args.out)
-
-    # Best-effort summary: find the largest device-time ops in the proto.
-    try:
-        import glob
-        import gzip
-
-        files = glob.glob(args.out + "/**/*.xplane.pb", recursive=True)
-        print("xplane files:", files)
-    except Exception as e:  # noqa: BLE001
-        print("no summary:", e)
+    print("xplane files:",
+          glob.glob(args.out + "/**/*.xplane.pb", recursive=True))
 
 
 if __name__ == "__main__":

@@ -1,12 +1,12 @@
 #!/usr/bin/env python
 """Summarize a jax.profiler xplane.pb trace without tensorboard.
 
-The profile plugin isn't installed in this image, so this decodes the
-protobuf wire format directly (schema: tsl/profiler/protobuf/xplane.proto)
-and aggregates device-op durations per plane/line.  Used to attribute the
-production frame's device time (VERDICT r2 task 9).
+Decodes the protobuf wire format directly (schema:
+tsl/profiler/protobuf/xplane.proto), so no profiler plugin is needed, and
+aggregates device-op durations per plane/line to attribute the production
+frame's device time.
 
-Usage: python tools/xplane_summary.py /tmp/ca3d_trace [--top 25]
+Usage: python tools/xplane_summary.py chiprun_out/trace [--top 25]
 """
 
 import argparse
@@ -99,7 +99,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("trace_dir")
     ap.add_argument("--top", type=int, default=25)
-    ap.add_argument("--plane-filter", default="TPU",
+    ap.add_argument("--plane-filter", default="/device:GPU",
                     help="substring of plane names to include")
     args = ap.parse_args()
 
